@@ -1,11 +1,12 @@
-"""snappy_tpu — a TPU-native Snappy codec framework.
+"""snappy_tpu — a Snappy codec framework on JAX.
 
-A from-scratch JAX/XLA/Pallas implementation of Google's Snappy raw block
-format and framed format (with masked CRC32C), with the capabilities of the
-reference implementation status-im/nim-snappy re-designed as data-parallel
-device kernels: block/frame data parallelism over device meshes, speculative
-tag parsing with pointer doubling, sort-based match finding, prefix-sum
-compaction, and GF(2)-combined on-chip CRC32C.
+A from-scratch implementation of Google's Snappy raw block format and framed
+format (with masked CRC32C), with the capabilities of the reference
+implementation status-im/nim-snappy: a native C host runtime, and a device
+route of batched kernels -- a CUDA chunk decoder on NVIDIA GPUs (XLA's
+array-parallel decoder on the CPU backend), sort-based match finding, and a
+GF(2)-combined CRC32C -- with block/frame data parallelism over device
+meshes.
 
 Public API surface (see api.py for the reference-parity table):
 

@@ -71,10 +71,9 @@ def encode(data: bytes, level: int = 1) -> bytes:
     Raises :class:`InputTooLarge` for inputs over 2^32-1 bytes.
 
     ``level``: 1 = reference-parity greedy, 2 = denser two-way match
-    search (~0.5-2% smaller, ~10-15% slower) — the SAME bytes on the host
-    backend and the device scalar kernel (round 5; the two-entry FIFO
-    bucket runs in the kernel's SMEM table).  The XLA fallback kernel
-    (non-TPU platforms) runs its own sort-based matcher at every level.
+    search (~0.5-2% smaller, ~10-15% slower) on the host backend.  The
+    device encoder runs its own sort-based matcher, with one level: its
+    bytes differ from the host's and ``level`` does not change them.
     """
     out = engine.raw_compress(bytes(data), level=level)
     if out is None:

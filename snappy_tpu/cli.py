@@ -16,7 +16,7 @@ from .formats import framing
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        prog="snappy_tpu", description="TPU-native snappy codec"
+        prog="snappy_tpu", description="Snappy codec (raw + framed)"
     )
     from . import __version__
 

@@ -1,8 +1,8 @@
-"""On-chip CRC32C for framed chunks — lane-parallel with GF(2) combine.
+"""Device CRC32C for framed chunks — lane-parallel with GF(2) combine.
 
 The reference computes CRC32C byte-sequentially in C (slicing-by-8,
-/root/reference/snappy/crc32c.c:677-731).  A byte-serial loop is the wrong
-shape for a TPU, so this kernel exploits the linearity of CRC over GF(2):
+/root/reference/snappy/crc32c.c:677-731).  A byte-serial loop leaves a wide
+device idle, so this kernel exploits the linearity of CRC over GF(2):
 
 1. split each (zero-padded) chunk into L lanes of S=64 bytes and run the
    table-driven register update on all lanes *in parallel* (16 sequential
@@ -30,9 +30,9 @@ import numpy as np
 
 _POLY_REFLECTED = np.uint32(0x82F63B78)
 _MASK_DELTA = np.uint32(0xA282EAD8)
-# Bytes per lane: one 32-bit word per lane maximizes VPU parallelism (no
+# Bytes per lane: one 32-bit word per lane maximizes parallelism (no
 # sequential word loop at all; the GF(2) combine tree absorbs the extra
-# levels at negligible cost).
+# levels).
 _LANE_BYTES = 4
 
 
@@ -159,8 +159,6 @@ def _mat_apply_jnp(cols: jnp.ndarray, v: jnp.ndarray) -> jnp.ndarray:
     32-step loop made remote compiles pathologically slow)."""
     shifts = jnp.arange(32, dtype=jnp.uint32)
     bits = (v[..., None] >> shifts) & jnp.uint32(1)  # [..., 32]
-    # (0 - bit) & col instead of bit * col: integer multiply is microcoded
-    # on the VPU (measured ~30% slower end to end).
     terms = (jnp.uint32(0) - bits) & cols  # [..., 32]
     return jax.lax.reduce(
         terms, jnp.uint32(0), jax.lax.bitwise_xor, dimensions=(terms.ndim - 1,)
@@ -172,13 +170,10 @@ def _lane_registers(chunk_u32: jnp.ndarray) -> jnp.ndarray:
 
     chunk_u32: [L, 64] int32 byte values -> uint32 [L].
 
-    Bit-serial formulation: the classic table step ``(c >> 8) ^ T[(c ^ b) &
-    0xff]`` needs a 256-entry gather per byte, and arbitrary gathers
-    serialize on TPU (Mosaic's dynamic_gather is limited to 128-lane
-    tables).  Instead we clock the LFSR one bit at a time with pure
-    XOR/shift/mask ops — 8x the nominal op count but fully VPU-vectorized
-    across all lanes x chunks, which is orders of magnitude faster on the
-    hardware.  Bits of a little-endian 32-bit load are already in CRC
+    Bit-serial formulation: instead of the classic table step ``(c >> 8) ^
+    T[(c ^ b) & 0xff]`` (a 256-entry gather per byte) the LFSR is clocked
+    one bit at a time with pure XOR/shift/mask ops, elementwise across all
+    lanes x chunks.  Bits of a little-endian 32-bit load are already in CRC
     order (LSB-first per byte, bytes in order).
     """
     lanes = chunk_u32.shape[0]
@@ -194,7 +189,6 @@ def _lane_registers(chunk_u32: jnp.ndarray) -> jnp.ndarray:
             | (b[:, 3].astype(jnp.uint32) << 24)
         )
         # 32 LFSR clocks; after them the remaining high bits of x are zero.
-        # Feedback via (0 - m) & poly — multiply-free (see _mat_apply_jnp).
         def clock(_, x):
             m = x & jnp.uint32(1)
             return (x >> 1) ^ ((jnp.uint32(0) - m) & poly)

@@ -1,9 +1,8 @@
 """Array-parallel Snappy raw-stream decoder (XLA).
 
 The reference decodes with a sequential tag-dispatch loop
-(/root/reference/snappy/decoder.nim:20-155).  That shape — a data-dependent
-byte-pointer walk — is the worst case for a TPU, so this decoder re-derives
-the same semantics as three data-parallel phases (the construction follows
+(/root/reference/snappy/decoder.nim:20-155).  This decoder re-derives the
+same semantics in plain ``jax.numpy`` as three data-parallel phases (the construction follows
 the parallel-LZ77 literature, see PAPERS.md "Massively-Parallel Lossless
 Data Decompression"):
 
@@ -29,6 +28,9 @@ Data Decompression"):
 
 Everything is fixed-shape int32/uint32 math under jit; compressed/output
 lengths are runtime scalars, padded sizes are static (bucketed by caller).
+It is the device route's chunk decoder on the CPU backend, the whole-stream
+decoder for raw streams that cannot be split, and the plain reference the
+CUDA chunk decoder (``ops/decode_cuda.py``) is tested against.
 """
 
 from __future__ import annotations

@@ -10,8 +10,8 @@
  * format specification.
  *
  * The Python engine fans block spans out over threads (ctypes releases the
- * GIL), so throughput scales with host cores; the TPU kernels remain the
- * device-resident path.  Little-endian hosts only (the reference has the
+ * GIL), so throughput scales with host cores; the device route's kernels
+ * (ops/decode_cuda.py, ops/encode_jax.py) serve device-resident data.  Little-endian hosts only (the reference has the
  * same restriction, encoder.nim:127-128).
  */
 
@@ -264,8 +264,7 @@ size_t stpu_encode_span(const uint8_t* in, size_t n, uint8_t* out) {
 #define LIKELY(x) __builtin_expect(!!(x), 1)
 #define UNLIKELY(x) __builtin_expect(!!(x), 0)
 
-/* Fast-loop tag entry LUT — the same unified-parse idea as our scalar
- * TPU kernel's v3 path (ops/scalar_emit.py): one entry gives trailer
+/* Fast-loop tag entry LUT: one entry gives trailer
  * byte count, op length and the copy-1 offset base, and one masked
  * unaligned 4-byte load serves the copy-1/2/4 offset alike, replacing
  * the tag-type branch chain (2-3 data-dependent mispredicts per op on

@@ -6,11 +6,14 @@ Here that structure becomes first-class: blocks/frames are sharded over a
 1-D ``jax.sharding.Mesh`` axis, each device runs the batched kernels on its
 shard, and the variable-length results are assembled in frame order using a
 ``lax.all_gather`` of per-shard compressed lengths plus an exclusive prefix
-sum for exact output offsets (the TPU-native analog of the reference's
+sum for exact output offsets (the device analog of the reference's
 sequential buffer append, snappy.nim:56-63).
 
-Works on any mesh: a real multi-chip TPU slice (ICI collectives) or the
-virtual multi-device CPU used in tests and the multichip dry-run.
+Each device runs the engine's kernels on its shard: ``encode_jax`` and
+``crc32c_jax`` for encode, and for decode the chunk decoder the engine picks
+from the platform (the CUDA kernel on GPUs, ``decode_jax`` on the CPU).
+Works on any mesh: GPUs of one host (collectives over NVLink) or the
+virtual multi-device CPU used in tests.
 """
 
 from __future__ import annotations
@@ -23,27 +26,17 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:  # jax >= 0.7 spells it jax.shard_map
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
-from .. import engine
+from .. import config, engine
 from ..formats import constants as C
 from ..formats import framing, varint
-from ..ops import crc32c_jax, decode_jax, encode_jax
 
 AXIS = "blocks"
 
-# Per-device kernel dispatch: on TPU the production scalar-core Pallas
-# kernels run inside each shard (each device decodes/encodes its chunk
-# shard sequentially on its scalar core — block-level data parallelism
-# across the mesh, chunk-level parallelism from the kernel grid within a
-# device); the XLA array kernels remain the non-TPU fallback, exactly as
-# in the single-device engine (engine._use_scalar_kernels).
-
 
 def default_mesh(n_devices: Optional[int] = None) -> Mesh:
+    config.ensure_compilation_cache()
     devs = jax.devices()
     if n_devices is not None:
         devs = devs[:n_devices]
@@ -62,25 +55,20 @@ def _pad_batch(nb: int, n_dev: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3), static_argnames=("mesh",))
-def _sharded_encode_step(blocks_u8, blens, max_comp: int, with_crc: bool, *, mesh):
-    """One sharded encode step: per-device block encode (+ optional frame
-    CRC), then an all-gather of compressed lengths and a global exclusive
+@functools.partial(jax.jit, static_argnames=("with_crc", "mesh"))
+def _sharded_encode_step(blocks_u8, blens, *, with_crc: bool, mesh):
+    """One sharded encode step: the engine's encode step on each device's
+    shard, then an all-gather of compressed lengths and a global exclusive
     offset scan so every device knows the exact frame-order layout.
 
     Returns (enc, totals, crcs, offsets); enc stays sharded over the mesh,
     totals/offsets are replicated.
     """
-    b = blocks_u8.shape[1]
 
     def step(blk, bl):
-        blk_i32 = blk.astype(jnp.int32)
-        enc, totals = encode_jax.encode_blocks(blk_i32, bl, max_comp)
-        if with_crc:
-            crcs = crc32c_jax.masked_crc32c_chunks(blk_i32, bl, b)
-        else:
+        enc, totals, crcs = engine._encode_step(blk, bl, with_crc=with_crc)
+        if crcs is None:
             crcs = jnp.zeros_like(totals, dtype=jnp.uint32)
-        # Frame-order layout: gather every shard's lengths, exclusive-scan.
         all_totals = jax.lax.all_gather(totals, AXIS, tiled=True)
         offsets = jnp.cumsum(all_totals) - all_totals
         return enc, all_totals, crcs, offsets
@@ -94,17 +82,15 @@ def _sharded_encode_step(blocks_u8, blens, max_comp: int, with_crc: bool, *, mes
     )(blocks_u8, blens)
 
 
-@functools.partial(jax.jit, static_argnums=(3,), static_argnames=("mesh",))
-def _sharded_decode_step(comp_u8, comp_lens, out_lens, u_pad: int, *, mesh):
-    """Sharded framed-chunk decode with on-chip CRC of the decoded output."""
+@functools.partial(jax.jit, static_argnames=("mesh", "kernel"))
+def _sharded_decode_step(comp_u8, comp_lens, out_lens, *, mesh, kernel: str):
+    """The engine's decode + CRC step on each device's shard of chunks."""
 
     def step(comp, cl, ol):
-        out, ok, written = decode_jax.decode_chunks(
-            comp.astype(jnp.int32), cl, ol, u_pad
+        out, ok, written, crcs = engine._decode_step(
+            comp, cl, ol, kernel=kernel, with_crc=True
         )
-        crcs = crc32c_jax.masked_crc32c_chunks(out.astype(jnp.int32), ol, u_pad)
-        all_ok = jax.lax.all_gather(ok, AXIS, tiled=True)
-        return out, all_ok, written, crcs
+        return out, jax.lax.all_gather(ok, AXIS, tiled=True), written, crcs
 
     return shard_map(
         step,
@@ -113,72 +99,6 @@ def _sharded_decode_step(comp_u8, comp_lens, out_lens, u_pad: int, *, mesh):
         out_specs=(P(AXIS, None), P(), P(AXIS), P(AXIS)),
         check_vma=False,
     )(comp_u8, comp_lens, out_lens)
-
-
-@functools.partial(jax.jit, static_argnums=(2, 3), static_argnames=("mesh",))
-def _sharded_encode_scalar_step(blocks_u8, blens, nb_local: int, with_crc: bool, *, mesh):
-    """Scalar-kernel variant of _sharded_encode_step: each device packs its
-    block shard into the kernel word layout and runs the production
-    scalar-core encoder (ops/encode_scalar.py) on it."""
-    from ..ops import encode_scalar
-
-    def step(blk, bl):
-        blk_i32 = blk.astype(jnp.int32)
-        if with_crc:
-            crcs = crc32c_jax.masked_crc32c_chunks(blk_i32, bl, C.MAX_BLOCK_LEN)
-        else:
-            crcs = jnp.zeros((nb_local,), dtype=jnp.uint32)
-        b = blk_i32.reshape(nb_local, -1, 4)
-        words = b[:, :, 0] | (b[:, :, 1] << 8) | (b[:, :, 2] << 16) | (b[:, :, 3] << 24)
-        words = jnp.pad(words, ((0, 0), (0, 4))).reshape(nb_local, 1, -1)
-        meta = bl.astype(jnp.int32).reshape(nb_local, 1, 1)
-        enc_w, elen = encode_scalar.encode_blocks_words(meta, words, nb_local)
-        totals = elen[:, 0, 0]
-        all_totals = jax.lax.all_gather(totals, AXIS, tiled=True)
-        offsets = jnp.cumsum(all_totals) - all_totals
-        return enc_w, all_totals, crcs, offsets
-
-    return shard_map(
-        step,
-        mesh=mesh,
-        in_specs=(P(AXIS, None), P(AXIS)),
-        out_specs=(P(AXIS, None, None), P(), P(AXIS), P()),
-        check_vma=False,
-    )(blocks_u8, blens)
-
-
-@functools.partial(jax.jit, static_argnums=(2,), static_argnames=("mesh",))
-def _sharded_decode_scalar_step(meta, comp_words, nb_local: int, *, mesh):
-    """Scalar-kernel variant of _sharded_decode_step: per-device scalar-core
-    chunk decode (ops/decode_scalar.py) + VPU masked CRC of the outputs.
-
-    meta: int32 [nb, 1, 2]; comp_words: int32 [nb, CW_PAD] (row-major view
-    of the kernel's flat layout, reshaped per shard)."""
-    from ..ops import decode_scalar
-
-    def step(m, cw):
-        out_words, status = decode_scalar.decode_chunks_words(
-            m, cw.reshape(-1), nb_local
-        )
-        w = out_words[:, 0, : decode_scalar.OUT_WORDS]
-        byts = jnp.stack(
-            [w & 255, (w >> 8) & 255, (w >> 16) & 255, (w >> 24) & 255], axis=-1
-        ).reshape(nb_local, -1)
-        out_lens = m[:, 0, 1]
-        # The copy engine spills garbage past the written length; zero for CRC.
-        j = jax.lax.broadcasted_iota(jnp.int32, byts.shape, 1)
-        byts = jnp.where(j < out_lens[:, None], byts, 0)
-        crcs = crc32c_jax.masked_crc32c_chunks(byts, out_lens, C.MAX_BLOCK_LEN)
-        all_ok = jax.lax.all_gather(status[:, 0, 0], AXIS, tiled=True)
-        return out_words, all_ok, status[:, 0, 1], crcs
-
-    return shard_map(
-        step,
-        mesh=mesh,
-        in_specs=(P(AXIS, None, None), P(AXIS, None)),
-        out_specs=(P(AXIS, None, None), P(), P(AXIS), P(AXIS)),
-        check_vma=False,
-    )(meta, comp_words)
 
 
 # ---------------------------------------------------------------------------
@@ -202,20 +122,12 @@ def _shard_arrays(mesh: Mesh, blocks: np.ndarray, blens: np.ndarray):
 
 
 def _sharded_encode(mesh: Mesh, blocks, blens, with_crc: bool):
-    """Run the sharded encode step with the production per-device kernel
-    (scalar-core on TPU, XLA fallback elsewhere — VERDICT r2 #4).
+    """Run the sharded encode step.
 
     Returns (enc_bytes_2d [nb, :], totals [nb], crcs [nb])."""
     dblocks, dblens = _shard_arrays(mesh, blocks, blens)
-    if engine._use_scalar_kernels():
-        nb_local = dblocks.shape[0] // mesh.devices.size
-        enc_w, totals, crcs, _offsets = _sharded_encode_scalar_step(
-            dblocks, dblens, nb_local, with_crc, mesh=mesh
-        )
-        enc_b = np.ascontiguousarray(np.asarray(enc_w)).view(np.uint8)[:, 0, :]
-        return enc_b, np.asarray(totals), np.asarray(crcs)
     enc, totals, crcs, _offsets = _sharded_encode_step(
-        dblocks, dblens, engine._MAX_COMP_BLOCK, with_crc, mesh=mesh
+        dblocks, dblens, with_crc=with_crc, mesh=mesh
     )
     return np.asarray(enc), np.asarray(totals), np.asarray(crcs)
 
@@ -319,54 +231,18 @@ def sharded_framed_uncompress(
 
     if jobs:
         n_dev = mesh.devices.size
-        from ..ops import decode_scalar
-
-        if engine._use_scalar_kernels() and all(
-            len(j[1]) <= 4 * decode_scalar.C_WORDS for j in jobs
-        ):
-            # Production path: per-device scalar-core chunk decode.
-            n_pad = _pad_batch(len(jobs), n_dev)
-            bodies = [bytes(j[1]) for j in jobs] + [b""] * (n_pad - len(jobs))
-            decls = [j[2] for j in jobs] + [0] * (n_pad - len(jobs))
-            meta, comp_flat = decode_scalar.pack_chunks(bodies, decls)
-            comp2d = comp_flat.reshape(n_pad, decode_scalar.CW_PAD)
-            sh_m = NamedSharding(mesh, P(AXIS, None, None))
-            sh_c = NamedSharding(mesh, P(AXIS, None))
-            out_w, ok, _written, crcs = _sharded_decode_scalar_step(
-                jax.device_put(meta, sh_m),
-                jax.device_put(comp2d, sh_c),
-                n_pad // n_dev,
-                mesh=mesh,
-            )
-            out_b = np.ascontiguousarray(np.asarray(out_w)).view(np.uint8)
-            ok = np.asarray(ok)
-            crcs = np.asarray(crcs)
-            for k, (ci, _, declared, stored) in enumerate(jobs):
-                if not ok[k]:
-                    return None, "invalid"
-                if check_integrity and int(crcs[k]) != stored:
-                    return None, "crc"
-                outputs[ci] = out_b[k, 0, :declared].tobytes()
-            return b"".join(o if o is not None else b"" for o in outputs), "ok"
-
-        max_body = max(len(j[1]) for j in jobs)
-        c_pad = engine._bucket(max_body, lo=1024)
-        n_pad = _pad_batch(len(jobs), n_dev)
-        comp = np.zeros((n_pad, c_pad), dtype=np.uint8)
-        comp_lens = np.zeros((n_pad,), dtype=np.int32)
-        out_lens = np.zeros((n_pad,), dtype=np.int32)
-        for k, (_, body, declared, _) in enumerate(jobs):
-            comp[k, : len(body)] = np.frombuffer(body, np.uint8)
-            comp_lens[k] = len(body)
-            out_lens[k] = declared
+        comp, comp_lens, out_lens = engine.pack_rows(
+            [j[1] for j in jobs], [j[2] for j in jobs],
+            _pad_batch(len(jobs), n_dev),
+        )
         sh2 = NamedSharding(mesh, P(AXIS, None))
         sh1 = NamedSharding(mesh, P(AXIS))
         out, ok, _written, crcs = _sharded_decode_step(
             jax.device_put(comp, sh2),
             jax.device_put(comp_lens, sh1),
             jax.device_put(out_lens, sh1),
-            C.MAX_BLOCK_LEN,
             mesh=mesh,
+            kernel=engine._chunk_kernel(),
         )
         out = np.asarray(out)
         ok = np.asarray(ok)

@@ -1,11 +1,11 @@
-"""Multi-host distribution: each host codes its own span, offsets ride DCN.
+"""Multi-host distribution: each host codes its own span; offsets cross hosts.
 
-The reference has no distributed layer (SURVEY §2.3); the TPU-native analog
-for a codec is process-level data parallelism: a framed stream is a
+The reference has no distributed layer (SURVEY §2.3); the analog here for a
+codec is process-level data parallelism: a framed stream is a
 concatenation of self-delimiting chunks, so each host compresses /
-decompresses its local span independently (on its local chips or cores) and
-only the **compressed span lengths** cross hosts — one tiny all-gather on
-DCN — to place every span at its exact global offset.
+decompresses its local span independently (on its local devices or cores)
+and only the **compressed span lengths** cross hosts — one tiny all-gather —
+to place every span at its exact global offset.
 
 Usage (same program on every host):
 
@@ -37,8 +37,9 @@ def initialize(
 ) -> None:
     """Initialize jax.distributed (no-op if already initialized).
 
-    With no arguments, relies on the environment (TPU pod metadata or the
-    JAX_COORDINATOR_* variables), which is the normal production path.
+    With no arguments, relies on the environment (a cluster JAX detects, or
+    the JAX_COORDINATOR_* variables); where nothing describes the cluster,
+    pass ``coordinator_address``, ``num_processes`` and ``process_id``.
     """
     import jax
 
@@ -54,7 +55,7 @@ def initialize(
 
 
 def _allgather_lengths(local_len: int) -> np.ndarray:
-    """All-gather one int64 per process (rides DCN on multi-host)."""
+    """All-gather one int64 per process (crosses hosts on multi-host)."""
     import jax
     from jax.experimental import multihost_utils
 

@@ -5,9 +5,9 @@ sequential tag-loop decoder that the reference implements in Nim
 (/root/reference/snappy/encoder.nim:184-426, /root/reference/snappy/decoder.nim:20-155,
 both themselves ports of C++ google/snappy).  It exists to
 
-* generate/validate fixtures for the TPU kernels (bit-exact decode, size
-  yardstick for the encoder: the TPU encoder's output must decode identically
-  and should be no larger than this oracle's output), and
+* generate/validate fixtures for the device kernels (bit-exact decode, size
+  yardstick for the encoder: the device encoder's output must decode
+  identically and should be no larger than this oracle's output), and
 * serve as the differential partner in fuzz tests, playing the role the
   C++ library plays in the reference test suite
   (/root/reference/tests/cpp_snappy.nim).

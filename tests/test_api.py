@@ -173,17 +173,16 @@ class TestDecodeBatch:
         assert all(r[1] == "ok" for r in dev)
 
     def test_small_declared_oversized_body(self):
-        """declared <= 64 KiB but the body exceeds the chunk slab's comp
-        capacity (pathological expansion): must route to the big-window
-        slab, not be forced down the chunk route."""
+        """declared <= 64 KiB but the body exceeds the encoder's bound
+        (pathological expansion): the chunk slab widens to hold it."""
         from snappy_tpu import engine
+        from snappy_tpu.formats import constants as C
         from snappy_tpu.formats import varint
-        from snappy_tpu.ops import decode_scalar
 
         # 64 KiB emitted as 65536 one-byte literals: body = 2x declared
         payload = bytes(range(256)) * 256
         body = b"".join(b"\x00" + payload[i:i + 1] for i in range(65536))
-        assert len(body) > 4 * decode_scalar.C_WORDS
+        assert len(body) > C.max_compressed_len(C.MAX_BLOCK_LEN)
         enc = varint.encode_uint32(len(payload)) + body
         assert s.decode_batch([enc]) == [payload]
         (out, reason), = engine.raw_uncompress_batch([enc], backend="device")

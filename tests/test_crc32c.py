@@ -78,47 +78,3 @@ class TestJaxKernel:
             payload = plain[pos : pos + ch.uncompressed_len]
             assert crc32c_native.masked_crc32c(payload) == stored
             pos += ch.uncompressed_len
-
-
-class TestMxuCrc:
-    """GF(2) matmul formulation (crc32c_mxu) — exactness on CPU."""
-
-    def test_matches_native(self):
-        import numpy as np
-
-        from snappy_tpu.ops import crc32c_mxu
-
-        rng = np.random.default_rng(3)
-        N, P = 3, 65536
-        chunks = rng.integers(0, 256, (N, P), dtype=np.uint8)
-        lengths = np.asarray([P, 12345, 1], np.int32)
-        for k in range(N):
-            chunks[k, lengths[k] :] = 0
-        got = np.asarray(
-            crc32c_mxu.masked_crc32c_chunks(
-                jnp.asarray(chunks.astype(np.int32)), jnp.asarray(lengths), P
-            )
-        )
-        for k in range(N):
-            want = crc32c_native.masked_crc32c(chunks[k, : lengths[k]].tobytes())
-            assert int(got[k]) == want, k
-
-    def test_fused_kernel_interpret(self):
-        import numpy as np
-
-        from snappy_tpu.ops import crc32c_mxu
-
-        rng = np.random.default_rng(5)
-        N, P = 8, 65536
-        chunks = rng.integers(0, 256, (N, P), dtype=np.uint8)
-        lengths = np.asarray([P, P - 3, 40000, 1, P, 7, 123, 65535], np.int32)
-        for k in range(N):
-            chunks[k, lengths[k] :] = 0
-        got = np.asarray(
-            crc32c_mxu.masked_crc32c_chunks_fused(
-                jnp.asarray(chunks.astype(np.int32)), jnp.asarray(lengths), P, True
-            )
-        )
-        for k in range(N):
-            want = crc32c_native.masked_crc32c(chunks[k, : lengths[k]].tobytes())
-            assert int(got[k]) == want, k

@@ -1,7 +1,7 @@
 """Device-backend framed decode: malformed/CRC/rule coverage.
 
 The auto backend resolves to host when the native library exists, so these
-pin backend="device" to keep the on-chip chunk pipeline honest against the
+pin backend="device" to keep the device chunk pipeline honest against the
 same rule set (snappy.nim:199-265)."""
 
 import pytest
@@ -91,7 +91,7 @@ class TestDeviceFramed:
 
     def test_device_path_never_calls_host_crc(self, monkeypatch):
         """The device backend's success path is fully device-verified:
-        uncompressed-chunk CRCs go through the on-chip kernel, never
+        uncompressed-chunk CRCs go through the device kernel, never
         crc32c_native (round-5 VERDICT item 3; snappy.nim:231-233)."""
 
         def boom(*a, **k):

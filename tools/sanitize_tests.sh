@@ -63,7 +63,7 @@ SNAPPY_TPU_BACKEND=host \
 LD_PRELOAD="$LIBASAN" \
 python -m pytest tests/test_framed.py tests/test_formats.py \
   tests/test_oracle.py tests/test_crc32c.py \
-  -q -k "not device and not jax and not chunks and not Mxu" "$@"
+  -q -k "not device and not jax and not chunks" "$@"
 
 echo "== [3/3] coverage-guided fuzz (fixed budget) =="
 FUZZ_ITERS="${FUZZ_ITERS:-100000}" bash tools/fuzz_coverage.sh "${FILES[@]}"
